@@ -12,5 +12,5 @@ fi
 
 echo "Installing pydca_tpu (console scripts: mfdca, plmdca, pydca, a2m2aln)"
 pip install -e "$(dirname "$0")"
-echo "Done.  On a Cloud TPU VM, install the TPU-enabled jax first:"
-echo '  pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html'
+echo "Done.  On an NVIDIA GPU host, install jax with its CUDA plugin first:"
+echo '  pip install "jax[cuda12]>=0.9,<0.10"'

@@ -1,10 +1,10 @@
-"""pydca_tpu — a TPU-native Direct Coupling Analysis framework.
+"""pydca_tpu — Direct Coupling Analysis on JAX, run on an NVIDIA GPU.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of KIT-MBS/pydca
 (mean-field DCA and pseudolikelihood-maximization DCA for protein/RNA MSAs),
-designed MXU-first: the counting layer is one-hot matmuls, plmDCA is a single
+designed around matmuls: the counting layer is one-hot matmuls, plmDCA is a single
 large matmul per L-BFGS iteration, and the N (alignment depth) axis shards
-data-parallel over a TPU mesh with psum-merged statistics and gradients.
+data-parallel over a device mesh with psum-merged statistics and gradients.
 """
 
 __version__ = "0.1.0"

@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="pydca",
         description=(
             "DCA contact-map visualization, PDB inspection, and MSA trimming "
-            "(TPU-native pydca_tpu)"
+            "(pydca_tpu on JAX)"
         ),
     )
     subparsers = parser.add_subparsers(dest="the_command", required=True)

@@ -33,7 +33,7 @@ DCA_COMPUTATION_SUBCOMMANDS = (
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="mfdca",
-        description="Mean-field direct coupling analysis (TPU-native pydca_tpu)",
+        description="Mean-field direct coupling analysis (pydca_tpu on JAX)",
     )
     subparsers = parser.add_subparsers(dest="the_command", required=True)
     for name, desc in [

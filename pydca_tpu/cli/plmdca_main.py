@@ -4,7 +4,7 @@ Mirrors the reference CLI (``pydca/plmdca_main.py``): subcommands
 ``compute_fn``, ``compute_di``, ``compute_params``; adds ``--lambda_h
 --lambda_J --max_iterations --num_threads`` to the common flags; output naming
 ``PLMDCA_{apc,raw}_{fn,di}_scores_<msa>.txt`` (``plmdca_main.py:195-222``).
-``--num_threads`` is accepted for compatibility; compute runs on the TPU.
+``--num_threads`` is accepted for compatibility; compute runs on the device.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="plmdca",
         description=(
             "Pseudolikelihood-maximization direct coupling analysis "
-            "(TPU-native pydca_tpu)"
+            "(pydca_tpu on JAX)"
         ),
     )
     subparsers = parser.add_subparsers(dest="the_command", required=True)
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--lambda_h", type=float)
         sp.add_argument("--lambda_J", type=float)
         sp.add_argument("--max_iterations", type=int)
-        sp.add_argument("--num_threads", type=int, help="ignored (TPU backend)")
+        sp.add_argument("--num_threads", type=int, help="ignored (compute runs on the device)")
         sp.add_argument(
             "--seq_block", type=int,
             help="stream the loss over sequence blocks of this size "
@@ -53,19 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument(
             "--precision",
             choices=["auto", "bfloat16", "float32"],
-            help="matmul operand precision (default auto = float32 operands; "
-            "on TPU the MXU still computes f32 matmuls as bf16-multiply/"
-            "f32-accumulate passes under JAX's DEFAULT precision. bfloat16 "
-            "casts the operands explicitly — measured no faster on v5e)",
+            help="matmul operand precision (default auto = float32 operands, "
+            "which a GPU multiplies as TF32 under JAX's DEFAULT precision; "
+            "bfloat16 casts the operands explicitly)",
         )
         sp.add_argument(
             "--param_space",
             choices=["auto", "w2", "compact"],
             help="optimizer parameterization: compact (= auto default) uses "
-            "the reference's flat pair layout — measured fastest end-to-end "
-            "on TPU; w2 runs L-BFGS over the full symmetric coupling matrix "
-            "(2x cheaper per evaluation, 2x optimizer memory/traffic — "
-            "faster where the evaluation dominates, e.g. CPU)",
+            "the reference's flat pair layout; w2 runs L-BFGS over the full "
+            "symmetric coupling matrix (cheaper per evaluation, 2x optimizer "
+            "memory/traffic)",
         )
         sp.add_argument(
             "--checkpoint",

@@ -1,7 +1,7 @@
 """Family-batched DCA: run many MSAs through one vmapped device program.
 
-The reference processes one MSA per process invocation; on TPU the natural
-way to amortize compilation and fill the MXU when individual families are
+The reference processes one MSA per process invocation; on an accelerator
+the natural way to amortize compilation and fill the device when families are
 small is to pad a set of alignments of the same biomolecule to a common
 ``(F, Nmax, Lmax)`` block and ``vmap`` the whole pipeline over the family
 axis (the "batched multi-family run" scaling axis, SURVEY.md section 2b).
@@ -148,7 +148,7 @@ def _family_plm_loss(theta, msa, weights, pidx, site_mask, lambda_h, lambda_j,
     dtype = theta.dtype
     h = theta[: l * q].reshape(l, q)
     jfull = _expand_full(theta[l * q :], l, q)
-    # (N, q, L) logits layout: L on the vector lanes (see plm._plm_loss_prepped)
+    # (N, q, L) logits layout: L contiguous (see plm._plm_loss_prepped)
     w2 = jfull.transpose(1, 3, 2, 0).reshape(l * q, q * l)
     x = jax.nn.one_hot(msa, q, dtype=dtype).reshape(-1, l * q)
     logits = (
@@ -330,7 +330,7 @@ def bucket_families(
 ):
     """Group family indices into (N, L) power-of-two buckets.
 
-    A single ``(F, Nmax, Lmax)`` block burns MXU time on pad rows/sites
+    A single ``(F, Nmax, Lmax)`` block burns device time on pad rows/sites
     whenever the families are heterogeneous, and the lock-step vmapped
     ``while_loop`` runs every family until the slowest converges
     (VERDICT r3 item 8).  Bucketing by rounded-up (N, L) bounds both

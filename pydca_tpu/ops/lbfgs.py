@@ -1,14 +1,14 @@
-"""Jittable L-BFGS with a strong-Wolfe line search, as compiled TPU control flow.
+"""Jittable L-BFGS with a strong-Wolfe line search, as compiled device control flow.
 
 Replaces the reference's vendored float32 libLBFGS
 (``pydca/plmdca/lbfgs/lib/lbfgs.cpp``, driven from ``plmdcaBackend.cpp:68-75``)
 with a pure-JAX implementation: the search direction is computed in the
 compact representation (Byrd-Nocedal-Schnabel; three ``(m, D)`` matmuls over
 fixed-size history buffers — algebraically identical to the two-loop
-recursion but ~60 tiny sequential kernels fewer per iteration, measured 2x
-faster optimizer machinery at D=8.35M on v5e), the whole optimization is one
+recursion but ~60 tiny sequential kernels fewer per iteration), the whole
+optimization is one
 ``lax.while_loop`` under ``jit``, and every objective evaluation is the
-caller's traced function (for plmDCA: one large MXU matmul plus AD).
+caller's traced function (for plmDCA: one large matmul plus AD).
 
 Semantics mirrored from libLBFGS / the reference driver:
 - convergence when ``||g|| / max(1, ||x||) <= epsilon``  (lbfgs.cpp progress check),
@@ -27,8 +27,8 @@ Semantics mirrored from libLBFGS / the reference driver:
   best point.
 
 Deviation from the reference knobs: ``max_linesearch`` defaults to 10 here
-(reference: 5).  Objective evaluations are two orders of magnitude cheaper on
-the MXU than on the reference's OpenMP path, so a slightly deeper search that
+(reference: 5).  Objective evaluations are far cheaper on the accelerator
+than on the reference's OpenMP path, so a slightly deeper search that
 avoids premature termination is the right trade; iteration-count parity is
 unaffected (``max_iterations`` still counts outer iterations).
 
@@ -134,10 +134,9 @@ def _two_loop(g, s_hist, y_hist, rho, k, m):
         M   = [[R^{-T}(D + gamma*Y^T Y)R^{-1}, -R^{-T}], [-R^{-1}, 0]],
 
     where R is the *chronologically* upper-triangular part of S^T Y and
-    D its diagonal.  The point on TPU: the recursion is 2m sequential
-    slice/vdot/axpy steps (~60 tiny kernels whose per-iteration cost
-    measured 13-14 ms at D=8.35M, ~7x the traffic roofline —
-    scripts/r4_lbfgs_overhead.py); this form is three (m, D)-by-D
+    D its diagonal.  The point: the recursion is 2m sequential
+    slice/vdot/axpy steps (~60 tiny kernels per iteration, far above the
+    traffic roofline at D=8.35M); this form is three (m, D)-by-D
     matmuls plus m x m scalar algebra, reading the history twice.
 
     The circular buffer is handled without gathers: chronological
@@ -611,9 +610,8 @@ def lbfgs_steps(
 
         # Straight-line field-wise merge.  A lax.cond here lowers to a
         # select over the ENTIRE state (both branches materialized) — at
-        # D=8.35M that and whole-(m, D) history copies made the machinery
-        # cost 13.2 ms/iter, ~7x its traffic roofline (measured,
-        # scripts/r4_lbfgs_overhead.py).  On failure the line search
+        # D=8.35M that and whole-(m, D) history copies put the machinery
+        # far above its traffic roofline.  On failure the line search
         # already returns (xnew, fnew, gnew) == (x, f, g) bitwise, so the
         # big fields need no gating at all; s/y are then zero, sy = 0, and
         # the history update self-gates.  Only scalars carry conditionals.

@@ -1,4 +1,4 @@
-"""MXU-friendly dense linear algebra for the mean-field solve.
+"""Matmul-rich dense linear algebra for the mean-field solve.
 
 The mean-field engine needs the full inverse of the SPD correlation matrix
 ``C`` (couplings = -C^{-1}; reference inverts with LU,
@@ -13,7 +13,7 @@ where the triangular inverse W is built by divide and conquer:
 
     [A 0; B C]^{-1} = [A^{-1} 0; -C^{-1} B A^{-1}, C^{-1}]
 
-so all O(n^3) work lands in large matmuls on the MXU; only the
+so all O(n^3) work lands in large matmuls; only the
 ``block``-sized base cases use a substitution solve.  The final SYRK
 ``W^T W`` is a single big matmul.  Total ~4/3 n^3 FLOPs of matmul versus
 ~2 n^3 of substitution-structured triangular solves.
@@ -28,13 +28,11 @@ import jax.numpy as jnp
 
 __all__ = ["tri_inv_lower", "spd_inverse", "cholesky_blocked", "syrk_sharded"]
 
-# Base-case size of the divide-and-conquer triangular inverse.  r5 sweep
-# at D=20000 on v5e (compile s / warm run s): 1024 -> 50.3/0.725,
-# 2048 -> 55.6/0.556, 4096 -> 68.6/0.467.  2048 takes most of the runtime
-# win for ~5 s of one-time compile; the compile wall itself is the
-# dominant piece of the L=1000 pipeline cold start (51.7 of 87.7 s) and
-# is mitigated by warmup + the persistent cache, not by shrinking blocks
-# (smaller bases compile no faster — see the sweep).
+# Base-case size of the divide-and-conquer triangular inverse.  Swept at
+# D=20000 on an H100 (scripts/tune_defaults.py linalg; PERF.md): 1024, 2048
+# and 4096 run within 3% of each other, 2048 is kept.  The chain runs at
+# DEFAULT precision (TF32 on the GPU), which keeps mean-field FN-APC at
+# Spearman 0.999998 against a float64 oracle at the PF02826 shape.
 _BASE_BLOCK = 2048
 
 
@@ -132,13 +130,13 @@ def cholesky_blocked(c: jax.Array, block: int = 2048) -> jax.Array:
     ``(b, b)`` panel factorization is replicated.  XLA's own ``cholesky``
     has no distributed kernel, which forces the whole factor to be
     replicated per chip; at protein L=2000 (D=40k) that is a 6.4 GiB
-    buffer — past one v5e chip's comfort — while here each chip holds
+    buffer on every device, while here each device holds
     ``1/n_model`` of every slab (SURVEY section 5(c): "sharded dense
     solve"; replaces replicated ``jnp.linalg.cholesky`` for large D).
 
     The full-height formulation deliberately trades FLOPs for
     shardability: rows above the diagonal compute values that are masked
-    to zero (~3x the minimal Cholesky FLOP count, all of it MXU matmul),
+    to zero (~3x the minimal Cholesky FLOP count, all of it matmul),
     in exchange for *zero* resharding — no slicing of the sharded row
     axis ever happens.  With >=4-way model sharding the wall-clock still
     beats the replicated single-chip factorization, and the memory win is
@@ -175,13 +173,13 @@ def tri_inv_lower(m: jax.Array, block: int = _BASE_BLOCK) -> jax.Array:
     which keeps the big halves/concats distributed instead of replicated.
     """
     n = m.shape[0]
-    # n < 256 cannot produce a valid lane-aligned split (k would leave a
+    # n < 256 cannot produce a valid 128-aligned split (k would leave a
     # sub-128 or negative remainder for custom block < 256): solve directly.
     if n <= block or n < 256:
         return jax.scipy.linalg.solve_triangular(
             m, jnp.eye(n, dtype=m.dtype), lower=True
         )
-    # Split at a lane-aligned midpoint so every matmul operand tiles cleanly.
+    # Split at a 128-aligned midpoint so every matmul operand tiles cleanly.
     k = min(max(((n // 2) + 127) // 128 * 128, 128), n - 128)
     a_inv = _constrain_rows(tri_inv_lower(m[:k, :k], block))
     c_inv = _constrain_rows(tri_inv_lower(m[k:, k:], block))

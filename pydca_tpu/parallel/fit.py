@@ -1,7 +1,7 @@
 """Distributed DCA entry points: multi-host init + sequence-sharded fits.
 
 The reference scales with OpenMP threads on one node
-(``pydca/plmdca_main.py:77-78``); here the same work shards over a TPU
+(``pydca/plmdca_main.py:77-78``); here the same work shards over a device
 mesh.  Everything below is thin: data placement + the existing jitted
 pipelines — GSPMD inserts the ``psum`` collectives over the ``data`` axis
 (the pseudolikelihood and every frequency count are plain sums over
@@ -43,9 +43,9 @@ __all__ = [
 def init_distributed(**kwargs) -> None:
     """``jax.distributed.initialize`` with logging; idempotent-safe wrapper.
 
-    On TPU pods the coordinator/process ids come from the environment, so a
-    bare call is enough; kwargs pass through for manual setups
-    (coordinator_address=..., num_processes=..., process_id=...).
+    Where no cluster environment describes the job, pass
+    ``coordinator_address="localhost:<port>"``, ``num_processes`` and
+    ``process_id``; kwargs pass through to ``jax.distributed.initialize``.
     """
     try:
         jax.distributed.initialize(**kwargs)
@@ -112,8 +112,8 @@ def _mf_pipeline_sharded(
     :func:`pydca_tpu.ops.linalg.cholesky_blocked`: its
     full-height slab updates carry the 'model' row sharding, so no chip
     ever holds a replicated D^2 factor (at protein L=2000, D=40k, a
-    replicated factor would be 6.4 GiB — past one v5e chip's budget;
-    SURVEY section 5(c) "sharded dense solve").  Small D stays on XLA's
+    replicated factor would be 6.4 GiB per device; SURVEY section 5(c)
+    "sharded dense solve").  Small D stays on XLA's
     replicated kernel (faster below the sharding payoff point).
     Replaces the reference's single-threaded ``np.linalg.inv``
     (``msa_numerics.py:321-342``).

@@ -82,7 +82,7 @@ def _fn_matrix_sq(couplings: jax.Array, l: int, qm1: int) -> jax.Array:
     # The final subtraction is cancellation-prone for weak pairs (the four
     # terms are large and nearly equal); combine the (L, L)-reduced terms in
     # float64 — cheap (O(L^2) elements), and exact inner accumulations are
-    # not the issue.  x64 may be disabled (TPU default): jnp falls back to
+    # not the issue.  x64 may be disabled (the JAX default): jnp falls back to
     # f32 there, which matches the previous behavior.
     acc = jnp.float64 if jax.config.jax_enable_x64 else couplings.dtype
     out = (

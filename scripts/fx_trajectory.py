@@ -8,7 +8,7 @@ scored by the same loss, so 'fx_ours < fx_ref_params' means our optimizer
 found a strictly better point of the identical objective within the budget.
 
 Usage: python scripts/fx_trajectory.py [--progress]  (runs on the default
-backend: the real TPU under the driver, CPU under pytest-style envs)
+backend: the GPU when one is visible, else the CPU)
 """
 
 import argparse

@@ -116,7 +116,7 @@ def main():
     out = {
         "dataset": args.dataset,
         "ref_seconds": ref_time,
-        "tpu_seconds": our_time,
+        "our_seconds": our_time,
         "speedup": ref_time / our_time,
         "spearman_fn": spearman(fn_ref, fn_our),
         "spearman_fn_apc": spearman(apc_ref, apc_our),

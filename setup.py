@@ -1,4 +1,4 @@
-"""Packaging for pydca_tpu, the TPU-native DCA framework.
+"""Packaging for pydca_tpu, Direct Coupling Analysis on JAX.
 
 Console scripts mirror the reference's entry points (``setup.py:67-73`` of
 KIT-MBS/pydca): ``mfdca``, ``plmdca``, ``pydca``.  The optional native FASTA
@@ -11,10 +11,10 @@ from setuptools import find_packages, setup
 setup(
     name="pydca_tpu",
     version="0.1.0",
-    description="TPU-native Direct Coupling Analysis (mfDCA + plmDCA) on JAX",
+    description="Direct Coupling Analysis (mfDCA + plmDCA) on JAX, for NVIDIA GPUs",
     packages=find_packages(include=["pydca_tpu", "pydca_tpu.*"]),
     python_requires=">=3.10",
-    install_requires=["jax", "numpy"],
+    install_requires=["jax>=0.9,<0.10", "numpy"],
     entry_points={
         "console_scripts": [
             "mfdca=pydca_tpu.cli.mfdca_main:run_meanfield_dca",

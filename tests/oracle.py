@@ -11,6 +11,20 @@ Conventions: 0-based states, gap = q-1, pair order (0,1), (0,2), ..., (L-2,L-1).
 import numpy as np
 
 
+def spearman(a, b):
+    """Spearman rank correlation of two score vectors (ties broken by order)."""
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    ra -= ra.mean()
+    rb -= rb.mean()
+    return float((ra * rb).sum() / np.sqrt((ra**2).sum() * (rb**2).sum()))
+
+
+def top_overlap(a, b, k):
+    """Share of the top-k entries of ``a`` that are also top-k in ``b``."""
+    return len(set(np.argsort(-a)[:k]) & set(np.argsort(-b)[:k])) / k
+
+
 def seq_weights(msa, seqid):
     """O(N^2 L) all-pairs identity weighting (blocked for memory)."""
     n, l = msa.shape
@@ -137,7 +151,7 @@ def two_site_fields_and_di(coup_blocks, fi_r, l, q, tol=1e-4, eps=1e-20):
     return dis
 
 
-def plm_loss_and_grad(theta, msa, w, lam_h, lam_J, q):
+def plm_loss_and_grad(theta, msa, w, lam_h, lam_J, q, term_scale=False):
     """Regularized negative pseudolikelihood (symmetric-J variant) + gradient.
 
     Parameter layout matches the reference flat vector
@@ -145,6 +159,10 @@ def plm_loss_and_grad(theta, msa, w, lam_h, lam_J, q):
     ((P, q, q) pair-major, a-major).  NOTE: unlike the reference C++ this does
     NOT carry the prob accumulator across sequences (plmdca_numerics.cpp:492-499
     never resets prob_ni between n iterations — a reference quirk).
+
+    With ``term_scale`` also returns the gradient of the absolute terms,
+    ``|dlogits|^T X + 2 lam |theta|``: the scale that rounding errors of a
+    float32 or TF32 evaluation are proportional to.
     """
     n, l = msa.shape
     p = l * (l - 1) // 2
@@ -162,7 +180,7 @@ def plm_loss_and_grad(theta, msa, w, lam_h, lam_J, q):
         Jfull[i, j] = J[k]
         Jfull[j, i] = J[k].T
     X = np.eye(q)[msa]  # (N, L, q)
-    logits = h[None] + np.einsum("ijab,njb->nia", Jfull, X)
+    logits = h[None] + np.einsum("ijab,njb->nia", Jfull, X, optimize=True)
     m = logits.max(axis=2, keepdims=True)
     z = np.exp(logits - m)
     probs = z / z.sum(axis=2, keepdims=True)
@@ -172,9 +190,18 @@ def plm_loss_and_grad(theta, msa, w, lam_h, lam_J, q):
 
     dlogits = w[:, None, None] * (probs - X)  # (N, L, q)
     gh = dlogits.sum(axis=0) + 2 * lam_h * h
-    gJ = 2 * lam_J * J.copy()
+    gJ = 2 * lam_J * J
     # dL/dJfull[i,j,a,b] = sum_n dlogits[n,i,a] X[n,j,b]; symmetric accumulation
-    gfull = np.einsum("nia,njb->ijab", dlogits, X)
-    for (i, j), k in pair_of.items():
-        gJ[k] += gfull[i, j] + gfull[j, i].T
-    return fx, np.concatenate([gh.ravel(), gJ.ravel()])
+    def pair_grad(dl, reg):
+        gfull = np.einsum("nia,njb->ijab", dl, X, optimize=True)
+        out = reg.copy()
+        for (i, j), k in pair_of.items():
+            out[k] += gfull[i, j] + gfull[j, i].T
+        return out
+
+    g = np.concatenate([gh.ravel(), pair_grad(dlogits, gJ).ravel()])
+    if not term_scale:
+        return fx, g
+    ah = np.abs(dlogits).sum(axis=0) + 2 * lam_h * np.abs(h)
+    aJ = pair_grad(np.abs(dlogits), 2 * lam_J * np.abs(J))
+    return fx, g, np.concatenate([ah.ravel(), aJ.ravel()])

@@ -8,7 +8,7 @@ from pydca_tpu import matrices
 from pydca_tpu.backmap import SequenceBackmapper
 from pydca_tpu.trim import MSATrimmer
 
-from conftest import RF00059, RF00059_REF, PF02826, PF02826_REF, RF00167
+from conftest import reference_file
 
 
 def _score_pair(a, b, biomolecule, letters):
@@ -91,7 +91,8 @@ def test_align_subsequences_gap_reinsertion():
 
 def test_backmapper_rna(rf00059_path):
     bm = SequenceBackmapper(
-        msa_file=rf00059_path, refseq_file=RF00059_REF, biomolecule="rna"
+        msa_file=rf00059_path, refseq_file=reference_file("rf00059_ref"),
+        biomolecule="rna",
     )
     mapping = bm.map_to_reference_sequence()
     assert len(mapping) > 1  # the reference test asserts this
@@ -110,7 +111,8 @@ def test_backmapper_rna(rf00059_path):
 
 def test_backmapper_protein(pf02826_path):
     bm = SequenceBackmapper(
-        msa_file=pf02826_path, refseq_file=PF02826_REF, biomolecule="protein"
+        msa_file=pf02826_path, refseq_file=reference_file("pf02826_ref"),
+        biomolecule="protein",
     )
     mapping = bm.map_to_reference_sequence()
     assert len(mapping) > 1
@@ -129,7 +131,8 @@ def test_trimmer_by_gap_size(rf00059_path):
 
 def test_trimmer_by_refseq(rf00059_path):
     trimmer = MSATrimmer(
-        rf00059_path, biomolecule="rna", refseq_file=RF00059_REF
+        rf00059_path, biomolecule="rna",
+        refseq_file=reference_file("rf00059_ref"),
     )
     cols = trimmer.trim_by_refseq(remove_all_gaps=True)
     trimmed = trimmer.get_msa_trimmed_by_refseq(remove_all_gaps=True)
@@ -139,7 +142,7 @@ def test_trimmer_by_refseq(rf00059_path):
 
 
 def _variant_path(k):
-    return f"/root/reference/tests/tests_input/ref_seq_RF00059_test{k}.faa"
+    return reference_file(f"rf00059_test{k}")
 
 
 @pytest.fixture(scope="module")
@@ -191,15 +194,11 @@ def test_backmap_variant_offsets_consistent(variant_mappings):
 
 # ---------------------------------------------------------------- golden pins
 REF_BACKMAP_CASES = {
-    "rf00167": (RF00167, "/root/reference/examples/ref_RF00167.fa", "rna"),
-    "pf02826": (PF02826, PF02826_REF, "protein"),
-    "rf00059": (RF00059, RF00059_REF, "rna"),
+    "rf00167": ("rf00167", "rf00167_ref", "rna"),
+    "pf02826": ("pf02826", "pf02826_ref", "protein"),
+    "rf00059": ("rf00059", "rf00059_ref", "rna"),
     **{
-        f"rf00059_test{k}": (
-            RF00059,
-            f"/root/reference/tests/tests_input/ref_seq_RF00059_test{k}.faa",
-            "rna",
-        )
+        f"rf00059_test{k}": ("rf00059", f"rf00059_test{k}", "rna")
         for k in (1, 2, 3, 4)
     },
 }
@@ -217,7 +216,9 @@ def test_backmap_matches_reference_golden(name):
     )
     msa_file, refseq_file, biomolecule = REF_BACKMAP_CASES[name]
     bm = SequenceBackmapper(
-        msa_file=msa_file, refseq_file=refseq_file, biomolecule=biomolecule
+        msa_file=reference_file(msa_file),
+        refseq_file=reference_file(refseq_file),
+        biomolecule=biomolecule,
     )
     mapping = bm.map_to_reference_sequence()
     keys = np.array(sorted(mapping), dtype=np.int32)
@@ -227,9 +228,9 @@ def test_backmap_matches_reference_golden(name):
 
 
 TRIM_CASES = {
-    "rf00059_refseq": (RF00059, RF00059_REF, "rna"),
-    "rf00167_refseq": (RF00167, "/root/reference/examples/ref_RF00167.fa", "rna"),
-    "pf02826_refseq": (PF02826, PF02826_REF, "protein"),
+    "rf00059_refseq": ("rf00059", "rf00059_ref", "rna"),
+    "rf00167_refseq": ("rf00167", "rf00167_ref", "rna"),
+    "pf02826_refseq": ("pf02826", "pf02826_ref", "protein"),
 }
 
 
@@ -244,7 +245,10 @@ def test_trim_by_refseq_matches_reference_golden(name, remove_all_gaps):
         os.path.join(os.path.dirname(__file__), "goldens", "ref_trim.npz")
     )
     msa_file, refseq_file, biomolecule = TRIM_CASES[name]
-    tr = MSATrimmer(msa_file, biomolecule=biomolecule, refseq_file=refseq_file)
+    tr = MSATrimmer(
+        reference_file(msa_file), biomolecule=biomolecule,
+        refseq_file=reference_file(refseq_file),
+    )
     cols = np.asarray(tr.trim_by_refseq(remove_all_gaps=remove_all_gaps), np.int32)
     key = f"{name}_cols_all" if remove_all_gaps else f"{name}_cols"
     np.testing.assert_array_equal(cols, golden[key])
@@ -258,6 +262,8 @@ def test_trim_by_gap_size_matches_reference_golden(key, max_gap):
         os.path.join(os.path.dirname(__file__), "goldens", "ref_trim.npz")
     )
     msa_file, _, biomolecule = TRIM_CASES[key + "_refseq"]
-    tr = MSATrimmer(msa_file, biomolecule=biomolecule, max_gap=max_gap)
+    tr = MSATrimmer(
+        reference_file(msa_file), biomolecule=biomolecule, max_gap=max_gap
+    )
     cols = np.asarray(tr.trim_by_gap_size(), np.int32)
     np.testing.assert_array_equal(cols, golden[f"{key}_gap{int(max_gap*100)}_cols"])

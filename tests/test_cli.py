@@ -249,8 +249,11 @@ def test_cli_warmup_subcommands(tmp_path, monkeypatch):
     from pydca_tpu.cli.mfdca_main import run_meanfield_dca
     from pydca_tpu.cli.plmdca_main import run_plm_dca
 
+    from pydca_tpu.synthetic import planted_alignment, write_fasta
+
     monkeypatch.chdir(tmp_path)
-    msa = "/root/reference/examples/MSA_RF00167.fa"
+    msa = str(tmp_path / "planted.fa")
+    write_fasta(msa, planted_alignment(120, 24, 5, 3, seed=0)[0], "rna")
     buf = io.StringIO()
     with redirect_stdout(buf):
         run_meanfield_dca(["warmup", "rna", msa])

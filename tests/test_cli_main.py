@@ -6,13 +6,13 @@ import pytest
 
 from pydca_tpu.cli.main import run_pydca
 
-from conftest import RF00059, RF00059_REF
+from conftest import reference_file
 
 
 def test_trim_by_gap_size(tmp_path):
     out = str(tmp_path / "trimout")
     run_pydca(
-        ["trim_by_gap_size", RF00059, "--max_gap", "0.4", "--output_dir", out]
+        ["trim_by_gap_size", reference_file("rf00059"), "--max_gap", "0.4", "--output_dir", out]
     )
     files = os.listdir(out)
     assert files == ["Trimmed_MSA_RF00059_trimmed_gap_treshold_50.fa"]
@@ -25,7 +25,8 @@ def test_trim_by_refseq(tmp_path):
     out = str(tmp_path / "trimref")
     run_pydca(
         [
-            "trim_by_refseq", "rna", RF00059, RF00059_REF,
+            "trim_by_refseq", "rna", reference_file("rf00059"),
+            reference_file("rf00059_ref"),
             "--remove_all_gaps", "--output_dir", out,
         ]
     )

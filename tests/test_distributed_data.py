@@ -17,8 +17,6 @@ from pydca_tpu.parallel.data import (
     weights_distributed,
 )
 
-RF00167 = "/root/reference/examples/MSA_RF00167.fa"
-
 
 def _write_fasta(path, rows, letters="ACGU-", start=0):
     with open(path, "w") as fh:

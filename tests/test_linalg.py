@@ -64,7 +64,7 @@ def test_cholesky_blocked_sharded_matches_replicated():
 def test_sharded_solve_does_not_replicate_factor():
     """Compile (not run) the sharded mf solve at protein L=2000, q=21
     (D=40000) on the 8-device mesh.  Per-device peak must (a) beat the
-    replicated formulation by >2x and (b) fit a v5e chip's 16 GiB HBM —
+    replicated formulation by >2x and (b) stay under 12 GiB per device —
     impossible when the D^2 f32 factor (6.4 GiB), its inverse, and the
     result are all replicated per device (VERDICT r3 item 5)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -103,6 +103,6 @@ def test_sharded_solve_does_not_replicate_factor():
         f"{repl/2**30:.2f} GiB: factor still replicating"
     )
     assert ours < 12 * 2**30, (
-        f"per-device peak {ours/2**30:.2f} GiB would not fit v5e HBM "
-        "alongside the rest of the pipeline"
+        f"per-device peak {ours/2**30:.2f} GiB passes the 12 GiB bound "
+        "left for the rest of the pipeline"
     )

@@ -7,7 +7,7 @@ from pydca_tpu.alphabets import PROTEIN, RNA
 from pydca_tpu.io import fasta as fasta_mod
 from pydca_tpu.native import fastacodec
 
-from conftest import RF00167, PF02826, RF00059
+from conftest import reference_file
 
 pytestmark = pytest.mark.skipif(
     not fastacodec.available(), reason="no C++ toolchain for the native codec"
@@ -22,10 +22,11 @@ def _python_read(path, biomolecule):
 
 
 @pytest.mark.parametrize(
-    "path,biomolecule",
-    [(RF00167, "rna"), (PF02826, "protein"), (RF00059, "rna")],
+    "name,biomolecule",
+    [("rf00167", "rna"), ("pf02826", "protein"), ("rf00059", "rna")],
 )
-def test_native_matches_python(path, biomolecule):
+def test_native_matches_python(name, biomolecule):
+    path = reference_file(name)
     alph = RNA if biomolecule == "rna" else PROTEIN
     data_n, ids_n = fastacodec.read_and_encode(path, alph, dedup=True)
     data_p, ids_p = _python_read(path, biomolecule)
@@ -63,6 +64,6 @@ def test_native_error_paths(tmp_path):
 
 
 def test_read_msa_uses_native(tmp_path):
-    msa = fasta_mod.read_msa(RF00167, "rna")
+    msa = fasta_mod.read_msa(reference_file("rf00167"), "rna")
     assert msa.num_seqs == 2544  # deduplicated count
     assert msa.seqs_len == 102

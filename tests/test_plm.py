@@ -270,7 +270,7 @@ def test_fit_plm_recovers_from_device_error_via_checkpoint(tmp_path, monkeypatch
     def flaky(*args, **kwargs):
         fail_at["calls"] += 1
         if fail_at["calls"] == 3:  # fail on the third chunk
-            raise RuntimeError("ABORTED: TPU backend error (synthetic)")
+            raise RuntimeError("ABORTED: device error (synthetic)")
         return orig(*args, **kwargs)
 
     monkeypatch.setattr(plm_mod, "_plm_fused_steps", flaky)

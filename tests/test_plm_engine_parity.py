@@ -14,13 +14,15 @@ import os
 import numpy as np
 import pytest
 
+from conftest import reference_file
+
 from pydca_tpu.plm import PlmDCA
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 DATASETS = {
-    "rf00167": ("/root/reference/examples/MSA_RF00167.fa", "rna"),
-    "pf02826": ("/root/reference/tests/tests_input/PF02826.faa", "protein"),
+    "rf00167": ("rf00167", "rna"),
+    "pf02826": ("pf02826", "protein"),
 }
 
 
@@ -42,7 +44,8 @@ def _spearman(a, b):
 
 
 def _engine_with_golden_params(name):
-    msa_file, biomolecule = DATASETS[name]
+    name_file, biomolecule = DATASETS[name]
+    msa_file = reference_file(name_file)
     params = np.load(os.path.join(GOLDENS, f"ref_plm_{name}_it100.npz"))["params"]
     inst = PlmDCA(msa_file, biomolecule)
     inst.get_fields_and_couplings_from_backend = lambda: params

@@ -2,7 +2,7 @@
 
 L-BFGS over the full symmetric coupling matrix w2 — the logits-matmul
 operand itself — deletes the per-evaluation compact->w2 expansion and its
-VJP (measured 3.56 -> ~1.7 ms/eval on v5e, scripts/r4_expand_probe2.py).
+VJP.
 These tests pin the math: the subspace restriction is exact (same loss,
 projected gradient), the conversions are lossless, and the end-to-end fit
 reaches the same optimum as the compact path.

@@ -41,13 +41,13 @@ def test_engine_timers_populated():
     assert inst2.timers.elapsed("weights") > 0
 
 
-def test_sync_forces_host_visibility():
-    import jax.numpy as jnp
+def test_device_trace_raises_when_trace_cannot_start(tmp_path):
+    """A trace that was asked for and cannot start is an error, not a
+    silent no-op: JAX runs one profiler session at a time."""
+    import pytest
 
-    from pydca_tpu.profiling import sync
-
-    tree = {"a": jnp.arange(4.0), "b": (jnp.zeros(()), [3, None])}
-    out = sync(tree)
-    assert out is tree  # passthrough
-    sync(jnp.zeros((0,)))  # empty leaves are skipped, not fetched
-    sync(None)
+    with device_trace(str(tmp_path / "outer")):
+        with pytest.raises(RuntimeError):
+            with device_trace(str(tmp_path / "inner")):
+                pass
+    assert any((tmp_path / "outer").rglob("*.xplane.pb"))

@@ -24,6 +24,10 @@ import os
 import numpy as np
 import pytest
 
+from conftest import reference_file
+from oracle import spearman
+from oracle import top_overlap as top_k_overlap
+
 import jax.numpy as jnp
 
 from pydca_tpu import read_msa
@@ -33,23 +37,9 @@ from pydca_tpu import score as score_mod
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 DATASETS = {
-    "rf00167": ("/root/reference/examples/MSA_RF00167.fa", "rna"),
-    "pf02826": ("/root/reference/tests/tests_input/PF02826.faa", "protein"),
+    "rf00167": ("rf00167", "rna"),
+    "pf02826": ("pf02826", "protein"),
 }
-
-
-def spearman(a, b):
-    ra = np.argsort(np.argsort(a)).astype(np.float64)
-    rb = np.argsort(np.argsort(b)).astype(np.float64)
-    ra -= ra.mean()
-    rb -= rb.mean()
-    return float((ra * rb).sum() / np.sqrt((ra**2).sum() * (rb**2).sum()))
-
-
-def top_k_overlap(a, b, k):
-    ta = set(np.argsort(-a)[:k].tolist())
-    tb = set(np.argsort(-b)[:k].tolist())
-    return len(ta & tb) / k
 
 
 def pair_index(pairs, l):
@@ -71,7 +61,8 @@ def ranking_to_dense(pairs, scores, l):
 @pytest.fixture(scope="module", params=["rf00167"])
 def mf_case(request):
     name = request.param
-    msa_file, biomolecule = DATASETS[name]
+    name_file, biomolecule = DATASETS[name]
+    msa_file = reference_file(name_file)
     golden = np.load(os.path.join(GOLDENS, f"ref_mf_{name}.npz"))
     inst = MeanFieldDCA(msa_file, biomolecule, pseudocount=0.5, seqid=0.8)
     return name, inst, golden
@@ -133,7 +124,8 @@ class TestMeanFieldReferenceParityProtein:
 
     @pytest.fixture(scope="class")
     def case(self):
-        msa_file, biomolecule = DATASETS["pf02826"]
+        name_file, biomolecule = DATASETS["pf02826"]
+        msa_file = reference_file(name_file)
         golden = np.load(os.path.join(GOLDENS, "ref_mf_pf02826.npz"))
         inst = MeanFieldDCA(msa_file, biomolecule, pseudocount=0.5, seqid=0.8)
         return inst, golden
@@ -190,18 +182,15 @@ PLM_GOLDENS = {
 
 PLM_DATASETS = {
     **DATASETS,
-    "rf00059": (
-        "/root/reference/tests/tests_input/MSA_RF00059_trimmed_gap_treshold_50.fa",
-        "rna",
-    ),
+    "rf00059": ("rf00059", "rna"),
 }
 
 
 def golden_plm_fn_apc(name):
     """Score the reference backend's parameter vector through our FN/APC
     pipeline (gap state excluded, reference ``plmdca.py:437-524`` semantics)."""
-    msa_file, biomolecule = PLM_DATASETS[name]
-    msa = read_msa(msa_file, biomolecule)
+    name_file, biomolecule = PLM_DATASETS[name]
+    msa = read_msa(reference_file(name_file), biomolecule)
     l, q = msa.seqs_len, msa.q
     z = np.load(os.path.join(GOLDENS, PLM_GOLDENS[name]))
     params = z["params"]
@@ -250,8 +239,8 @@ def fitted_plm(name):
     if name not in _PLM_FIT_CACHE:
         from pydca_tpu.plm import PlmDCA
 
-        msa_file, biomolecule = PLM_DATASETS[name]
-        msa = read_msa(msa_file, biomolecule)
+        name_file, biomolecule = PLM_DATASETS[name]
+        msa = read_msa(reference_file(name_file), biomolecule)
         inst = PlmDCA(msa, biomolecule, max_iterations=100)
         inst.get_fields_and_couplings_from_backend()
         _PLM_FIT_CACHE[name] = (msa, inst)
@@ -317,7 +306,8 @@ def test_plm_full_fit_di_apc_parity(name):
 def test_mf_fields_match_reference(name):
     """compute_fields pinned against the reference engine's output
     (reference ``meanfield_dca.py:588-633``; golden from ref_mf_fields.npz)."""
-    msa_file, biomolecule = DATASETS[name]
+    name_file, biomolecule = DATASETS[name]
+    msa_file = reference_file(name_file)
     golden = np.load(os.path.join(GOLDENS, "ref_mf_fields.npz"))[f"{name}_fields"]
     inst = MeanFieldDCA(msa_file, biomolecule, pseudocount=0.5, seqid=0.8)
     fields = inst.compute_fields()
@@ -330,7 +320,8 @@ def test_mf_fields_match_reference(name):
 @pytest.mark.slow
 def test_mf_fields_match_reference_protein():
     golden = np.load(os.path.join(GOLDENS, "ref_mf_fields.npz"))["pf02826_fields"]
-    msa_file, biomolecule = DATASETS["pf02826"]
+    name_file, biomolecule = DATASETS["pf02826"]
+    msa_file = reference_file(name_file)
     inst = MeanFieldDCA(msa_file, biomolecule, pseudocount=0.5, seqid=0.8)
     fields = inst.compute_fields()
     ours = np.stack([np.asarray(fields[i]) for i in sorted(fields)], axis=0)
@@ -370,8 +361,8 @@ def test_plm_protein_full_fit_di_apc_parity():
     default-CI FN test; the RNA datasets cover the 100-iteration tier."""
     from pydca_tpu.plm import PlmDCA
 
-    msa_file, biomolecule = PLM_DATASETS["pf02826"]
-    msa = read_msa(msa_file, biomolecule)
+    name_file, biomolecule = PLM_DATASETS["pf02826"]
+    msa = read_msa(reference_file(name_file), biomolecule)
     l, q = msa.seqs_len, msa.q
     p = l * (l - 1) // 2
     inst = PlmDCA(msa, biomolecule, max_iterations=30)

@@ -18,8 +18,7 @@ import jax.numpy as jnp
 from pydca_tpu import stats
 from pydca_tpu.plm import fit_plm
 
-RF00167 = "/root/reference/examples/MSA_RF00167.fa"
-RF00167_REF = "/root/reference/examples/ref_RF00167.fa"
+from conftest import reference_file
 
 
 def _toy(n=80, l=14, q=5, seed=7):
@@ -121,7 +120,7 @@ def test_mm_bf16_preserves_rankings_rf00167():
     golden = np.load(
         os.path.join(os.path.dirname(__file__), "goldens", "ref_plm_rf00167_it100.npz")
     )
-    msa = read_msa(RF00167, "rna")
+    msa = read_msa(reference_file("rf00167"), "rna")
     l, q = msa.seqs_len, msa.q
     m = jnp.asarray(msa.data, jnp.int32)
     w = stats.sequence_weights(m, 0.8, q)
@@ -146,40 +145,62 @@ def test_mm_bf16_preserves_rankings_rf00167():
 
 
 # ------------------------------------------------------- compilation cache
-def test_enable_compilation_cache_configures_jax(tmp_path, monkeypatch):
+@pytest.fixture
+def jax_cache_config():
+    """Restore JAX's cache settings after a test that changes them."""
+    names = (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs",
+        "jax_persistent_cache_min_entry_size_bytes",
+    )
+    old = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in old.items():
+        jax.config.update(n, v)
+
+
+def test_enable_compilation_cache_uses_env_dir(tmp_path, monkeypatch,
+                                               jax_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set the cache lands there and the code
+    sets no directory of its own (JAX reads the variable itself)."""
     from pydca_tpu import runtime
 
-    # the cache is TPU-only (CPU AOT executables are machine-specific);
-    # simulate a TPU backend to exercise the configuration path
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    cache_dir = str(tmp_path / "xla_cache")
-    old = jax.config.jax_compilation_cache_dir
-    try:
-        runtime.enable_compilation_cache(cache_dir)
-        assert jax.config.jax_compilation_cache_dir == cache_dir
-        assert os.path.isdir(cache_dir)
-    finally:
-        jax.config.update("jax_compilation_cache_dir", old)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    env_dir = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    before = jax.config.jax_compilation_cache_dir
+    assert runtime.enable_compilation_cache() == env_dir
+    assert os.path.isdir(env_dir)
+    assert jax.config.jax_compilation_cache_dir == before
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0
 
 
-def test_enable_compilation_cache_cpu_noop(monkeypatch):
+def test_enable_compilation_cache_fixed_checkout_path(monkeypatch,
+                                                      jax_cache_config):
+    """Without the variable the cache is .jax_cache/ at the checkout root —
+    a fixed path, because the path is part of every cache key."""
+    from pydca_tpu import runtime
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    assert runtime.cache_dir() == want
+    assert runtime.enable_compilation_cache() == want
+    assert jax.config.jax_compilation_cache_dir == want
+
+
+def test_enable_compilation_cache_cpu_noop(tmp_path, monkeypatch,
+                                           jax_cache_config):
     from pydca_tpu import runtime
 
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    old = jax.config.jax_compilation_cache_dir
-    runtime.enable_compilation_cache("/nonexistent/should/not/be/created")
-    assert jax.config.jax_compilation_cache_dir == old
-    assert not os.path.exists("/nonexistent/should/not/be/created")
-
-
-def test_enable_compilation_cache_env_disable(tmp_path, monkeypatch):
-    from pydca_tpu import runtime
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("PYDCA_TPU_CACHE_DIR", "")
-    old = jax.config.jax_compilation_cache_dir
-    runtime.enable_compilation_cache(str(tmp_path / "never"))
-    assert jax.config.jax_compilation_cache_dir == old
+    env_dir = tmp_path / "never"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(env_dir))
+    before = jax.config.jax_compilation_cache_dir
+    assert runtime.enable_compilation_cache() is None
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not env_dir.exists()
 
 
 # ------------------------------------------------- CLI --refseq_file path
@@ -190,8 +211,9 @@ def test_mfdca_cli_refseq_backmapped(tmp_path):
     out = str(tmp_path / "out")
     run_meanfield_dca(
         [
-            "compute_fn", "rna", RF00167, "--apc",
-            "--refseq_file", RF00167_REF, "--output_dir", out,
+            "compute_fn", "rna", reference_file("rf00167"), "--apc",
+            "--refseq_file", reference_file("rf00167_ref"),
+            "--output_dir", out,
         ]
     )
     files = [f for f in os.listdir(out) if f.startswith("MFDCA_apc_fn_scores")]
